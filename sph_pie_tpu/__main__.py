@@ -1,4 +1,4 @@
-"""CLI: python -m sph_pie_tpu {serve|bench|simulate|verify}."""
+"""CLI: python -m sph_pie_tpu {serve|simulate|verify}."""
 
 import argparse
 import sys
@@ -15,6 +15,9 @@ def main(argv=None):
     sub.add_parser("verify", help="run the trajectory contract")
     args = p.parse_args(argv)
 
+    from sph_pie_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     if args.cmd == "serve":
         from sph_pie_tpu.service.api import serve
 

@@ -1,11 +1,11 @@
 """Struct-of-arrays particle state.
 
 The reference keeps its hot mutable state in a single central object
-(`public/app.js:116-180` in sphereisaiahmin-dev/sph-pie); the TPU-native
-analogue is a struct-of-arrays pytree living in HBM: every field is a
-``[capacity, ...]`` ``jax.Array`` with a static capacity and an ``active``
-mask, so every step of the simulation is static-shape (a hard requirement
-for ``jit`` + ``lax.fori_loop`` rolling and for MXU/VPU tiling).
+(`public/app.js:116-180` in sphereisaiahmin-dev/sph-pie); the JAX
+analogue is a struct-of-arrays pytree living in device memory: every field
+is a ``[capacity, ...]`` ``jax.Array`` with a static capacity and an
+``active`` mask, so every step of the simulation is static-shape (a hard
+requirement for ``jit`` + ``lax.fori_loop`` rolling).
 
 Inactive slots (``active == False``) are used by emitters: a scene is
 allocated at its maximum particle count and emitters flip slots on over

@@ -2,7 +2,7 @@
 
 All kernels take the support radius ``h`` (W(r) = 0 for r >= h) and are
 written as branch-free jit-safe functions of ``r**2`` or ``r`` so XLA can
-fuse them straight into the neighbor reduction on the VPU.
+fuse them straight into the neighbor reduction.
 
 Normalisation constants (d = spatial dimension):
 

@@ -1,6 +1,6 @@
 // Native CPU oracle stepper.
 //
-// Exact C++ mirror of sph_pie_tpu/oracle.py (which itself mirrors the TPU
+// Exact C++ mirror of sph_pie_tpu/oracle.py (which itself mirrors the JAX
 // engines term for term): dense O(N^2) pairs, float64, OpenMP-parallel over
 // particles. Purpose: make the BASELINE trajectory contract (2D ~4k
 // particles, 1000 steps vs the CPU reference) run in seconds — the NumPy

@@ -1,10 +1,10 @@
-"""Binned dense cell layout — the gather-free TPU hot path.
+"""Binned dense cell layout — the gather-free slot hot path.
 
-Why this exists (measured on a real v5e chip, see BENCH notes): XLA/TPU
-executes per-particle random gathers at ~1e8 rows/s — a naive gather-based
-cell-list SPH step at 100k particles costs seconds. The VPU, by contrast,
-does dense elementwise math at TFLOP/s. So the TPU-native layout makes the
-neighbor structure *dense and static*:
+The layout makes the neighbor structure *dense and static*. It was chosen
+for the previous accelerator, where per-particle random gathers
+were orders of magnitude slower than dense elementwise math; on the GPU a
+gather-based cell list (``neighbors/grid.py``) is the usual design, and
+which of the two wins there is an open measurement (ROADMAP S3).
 
   * Every grid cell owns ``cap`` particle slots in one flat slot-major array
     (slot = cell_id * cap + rank). A one-cell ghost border keeps every
@@ -14,13 +14,12 @@ neighbor structure *dense and static*:
     neighbor stencil collapses to 3^(d-1) "slabs": for each combination of
     offsets along the leading axes, the neighbor block is a single
     **static slice** of the flat array (shifted by a compile-time constant)
-    — zero gathers, pure VPU streaming.
+    — zero gathers, pure dense streaming.
   * A Verlet-style skin (cell_size = h + skin) lets the expensive re-binning
     (counting sort) run only when accumulated displacement can have exceeded
     skin/2, instead of every step.
 
-The layout trades FLOPs on empty slots for the elimination of gathers —
-the right trade on TPU by ~3 orders of magnitude.
+The layout trades FLOPs on empty slots for the elimination of gathers.
 """
 
 from __future__ import annotations
@@ -38,22 +37,6 @@ from sph_pie_tpu.core.state import ParticleState, allocate
 from sph_pie_tpu.utils.struct import pytree_dataclass, replace
 
 Carry = TypeVar("Carry")
-
-_PALLAS_EXPAND: bool | None = None
-
-
-def _use_pallas_expand() -> bool:
-    """Experimental only (SPH_PIE_PALLAS_REBIN=1). Round-4 rework: the
-    kernel now compiles on hardware (scalar-prefetch spec + 128-lane pad)
-    and carries the density column, so the PBF flagship path can route it.
-    Default-off pending the hardware A/B (scripts/micro_rebin4.py) —
-    flip the default only with a measured win recorded in ROADMAP.md."""
-    global _PALLAS_EXPAND
-    if _PALLAS_EXPAND is None:
-        import os
-
-        _PALLAS_EXPAND = os.environ.get("SPH_PIE_PALLAS_REBIN", "") == "1"
-    return _PALLAS_EXPAND
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,13 +56,12 @@ class BinnedGrid:
                                # blocks are empty and the fold skips them.
     skip_empty_blocks: bool = True
     symmetric_fold: bool = False  # Newton's-3rd-law fold (slab_fold_sym).
-                               # MEASURED SLOWER on v5e at 1M (forces
-                               # 100->135 ms, density 36->47 ms): the dual
-                               # home+window reductions and the carry
-                               # write-back outweigh the ~1.8x pair-work
-                               # saving when lane padding already makes the
-                               # skipped slabs cheap. Kept for the record
-                               # and covered by an equivalence test.
+                               # Off: it measured slower than the
+                               # one-sided fold on the previous machine
+                               # (the dual home+window reductions and the
+                               # carry write-back outweighed the ~1.8x
+                               # pair-work saving). Not yet measured on
+                               # the GPU; covered by an equivalence test.
     n_boundary: int = 0        # trailing rows of the compact arrays that
                                # are frozen boundary (ghost) particles:
                                # they participate in every pair sum but
@@ -90,19 +72,9 @@ class BinnedGrid:
                                # processed only for blocks that actually
                                # contain a cell with occupancy > t. Lets
                                # cap carry overflow headroom (rare crowded
-                               # cells) at ~zero cost: window lanes cover
-                               # the full cap either way (3*cap <= 128 is
-                               # one VPU lane tile), only home rows pay.
-    pair_kernel: str = "auto"  # "fold" = XLA slab fold; "sym" = the
-                               # symmetric Pallas DENSITY kernel
-                               # (neighbors/pallas_sym) on any backend;
-                               # "auto" (default) = sym density on the
-                               # TPU backend for grids >= 20k cells
-                               # (measured 1.39x at 1M, 1.17x at 100k on
-                               # v5e), fold elsewhere — forces is always
-                               # the fold (a Pallas forces kernel
-                               # measured 0.59-0.89x and was trimmed;
-                               # ROADMAP ledger items 4/18).
+                               # cells) at little cost: window columns
+                               # cover the full cap either way, only home
+                               # rows pay.
     periodic: tuple[bool, ...] = ()  # per GRID axis (axis_order space):
                                # True = wrap. Periodic axes fill their
                                # ghost-border cells each step with images
@@ -113,19 +85,17 @@ class BinnedGrid:
                                # Incompatible with margin_cells on the
                                # same axis (walls vs wrap).
     window_mode: str = "concat"  # Window shape handed to pair_fn per
-                               # block (PERF.md profiles the tradeoff):
+                               # block:
                                # "concat" = one [blk, cap, 3cap] call
                                #   per slab, window materialised as a
-                               #   3-slice concatenate (96 lanes pad to
-                               #   128: 33% lane waste);
+                               #   3-slice concatenate;
                                # "split" = 3 calls of [blk, cap, cap]
-                               #   per slab, unmaterialised slices (32
-                               #   lanes pad to 128: 4x lane waste —
-                               #   measured SLOWER, kept for A/B);
+                               #   per slab, unmaterialised slices
+                               #   (slower on the previous machine, kept
+                               #   for A/B);
                                # "mega" = ONE [blk, cap, 3^dim*cap]
-                               #   call per block (864 lanes pad to
-                               #   896: 3.7% waste, ~10x fewer window
-                               #   ops and pair dispatches).
+                               #   call per block (~10x fewer window ops
+                               #   and pair dispatches).
     adaptive_rows: int = 0     # if 0 < a and a | cap: per-block DYNAMIC
                                # home-row bound. Each block runs a
                                # while_loop over a-row segments up to
@@ -138,16 +108,14 @@ class BinnedGrid:
                                # the all-empty rows. Subsumes home_tier.
                                # Matches the static fold to fp tiling
                                # noise (~1e-7 rel): segments partition
-                               # rows, only XLA's lane-reduce tiling
+                               # rows, only XLA's reduction tiling
                                # differs between shapes.
     scan_unroll: int = 1       # unroll factor for the fold's block scan
                                # (lax.scan unroll=k): k block bodies per
-                               # while iteration. PERF.md attributes
-                               # ~10% of the 1M step to dispatch gaps +
-                               # while overhead, which scale with the
-                               # ~351 iterations/phase; unrolling trades
-                               # them for code size. A/B knob
-                               # (scripts/micro_unroll.py).
+                               # while iteration. Dispatch gaps and
+                               # while overhead scale with the ~350
+                               # iterations/phase at 1M; unrolling trades
+                               # them for code size. A/B knob.
 
     @property
     def dim(self) -> int:
@@ -243,10 +211,9 @@ def binned_grid_from_bounds(
     )
     if block_cells is None:
         # Small blocks win twice in 3D: finer empty-block skip granularity
-        # and smaller VMEM-resident temps. Sweeps on v5e (dam breaks):
-        # 3D wants 256 cells/block (1M: 154 vs 298 ms/step at the old
-        # pair-budget choice of 2730); 2D grids are small and lightly
-        # skippable, so larger blocks (1024) edge out on dispatch overhead.
+        # and smaller temporaries. 256 cells/block in 3D and 1024 in 2D
+        # (small, lightly skippable grids, where dispatch overhead rules)
+        # were tuned on the previous machine; the GPU sweep is ROADMAP S7.
         budget = 8 * 1024 * 1024  # pair-tensor element cap per block
         sweet = 1024 if len(dims) == 2 else 256
         block_cells = max(8, min(sweet, budget // (grid.cap * 3 * grid.cap)))
@@ -313,11 +280,10 @@ def _bin_rows(
     ``owner`` must be the particle index of each row (rows are the compact
     particle arrays), so K == grid.max_particles.
 
-    TPU cost notes (measured v5e, 1M rows): a single multi-operand
-    ``lax.sort`` that carries every payload column with the key costs
-    ~22 ms — the round-1 argsort + per-field gathers cost ~260 ms, and its
-    ``searchsorted`` rank another ~170 ms (replaced here by a cummax scan
-    over change-points, ~5 ms). The remaining cost is the dense scatters.
+    Design: a single multi-operand ``lax.sort`` carries every payload
+    column with the key (no argsort + per-field gathers), and the rank
+    within a cell is a cummax scan over change-points (no
+    ``searchsorted``). The remaining cost is the dense scatters.
     """
     n = pos.shape[0]
     dim = grid.dim
@@ -376,69 +342,22 @@ def _bin_rows(
     S = grid.num_slots
     dt = pos.dtype
 
-    if _use_pallas_expand():
-        # Pallas expansion: per-cell VMEM copies instead of per-column XLA
-        # scatters (the rebin's scalar-transaction bound —
-        # scripts/micro_rebin2.py). Cell offsets come from one counts
-        # scatter-add + an exclusive cumsum.
-        from sph_pie_tpu.neighbors import pallas_rebin
+    # Per-COLUMN scalar scatters into flat [S] targets (a packed
+    # [K, 2dim+1] row scatter into [S, 7] measured worse on the previous
+    # machine, whose tiled layout padded the trailing axis).
+    def scat(rows):
+        return jnp.zeros((S,), rows.dtype).at[slot].set(rows, mode="drop")
 
-        count = (
-            jnp.zeros((grid.num_cells + 1,), jnp.int32)
-            .at[cid]
-            .add(1, mode="drop")[: grid.num_cells]
-        )
-        first_cell = jnp.concatenate(
-            [jnp.zeros((1,), jnp.int32), jnp.cumsum(count)[:-1].astype(jnp.int32)]
-        )
-        cols = list(spos) + list(svel) + ([sdens] if nd else []) + [
-            smass,
-            jax.lax.bitcast_convert_type(sowner, jnp.float32),
-        ]
-        rows = jnp.stack(cols, axis=-1)
-        dense = pallas_rebin.expand(first_cell, count, rows, grid.cap)
-        pos_d = dense[:, : grid.dim]
-        vel_d = (
-            dense[:, dim : dim + nv]
-            if nv
-            else jnp.zeros((S, dim), dt)
-        )
-        dens_pal = dense[:, dim + nv] if nd else None
-        mass_d = dense[:, dim + nv + nd]
-        owner_raw = jax.lax.bitcast_convert_type(
-            dense[:, dim + nv + nd + 1], jnp.int32
-        )
-        valid_d = mass_d > 0
-        owner_d = jnp.where(valid_d, owner_raw, -1)
-    else:
-        dens_pal = None
-        # Per-COLUMN scalar scatters. A packed [K, 2dim+1] row scatter
-        # into a dense [S, 7] target was measured WORSE (rebin 104 ->
-        # 152 ms at 1M on v5e): the [S, 7] layout lane-pads 7 -> 128 on
-        # the trailing axis, an 18x memory bloat that swamps the per-row
-        # amortisation. Flat [S] columns tile (8, 128) with zero waste.
-
-        def scat(rows):
-            return jnp.zeros((S,), rows.dtype).at[slot].set(rows, mode="drop")
-
-        pos_d = jnp.stack([scat(c) for c in spos], axis=-1)
-        vel_d = (
-            jnp.stack([scat(c) for c in svel], axis=-1)
-            if nv
-            else jnp.zeros((S, dim), dt)
-        )
-        mass_d = scat(smass)
-        valid_d = mass_d > 0
-        owner_d = jnp.full((S,), -1, jnp.int32).at[slot].set(
-            sowner, mode="drop"
-        )
-
-    if dens_pal is not None:
-        dens_d = dens_pal
-    elif nd:
-        dens_d = jnp.zeros((S,), dt).at[slot].set(sdens, mode="drop")
-    else:
-        dens_d = jnp.zeros((S,), dt)
+    pos_d = jnp.stack([scat(c) for c in spos], axis=-1)
+    vel_d = (
+        jnp.stack([scat(c) for c in svel], axis=-1)
+        if nv
+        else jnp.zeros((S, dim), dt)
+    )
+    mass_d = scat(smass)
+    valid_d = mass_d > 0
+    owner_d = jnp.full((S,), -1, jnp.int32).at[slot].set(sowner, mode="drop")
+    dens_d = scat(sdens) if nd else jnp.zeros((S,), dt)
 
     out = BinnedState(
         pos=pos_d,
@@ -632,8 +551,8 @@ def rebin(
     """Re-sort after drift: compact-gather K rows, then re-bin. O(K log K).
 
     (The obvious alternative — re-binning the S dense slots directly — costs
-    O(S) scatters over mostly-empty slots: measured 867 ms vs ~10 ms at 3D
-    100k on v5e.)
+    O(S) scatters over mostly-empty slots, nearly 100x slower at 3D 100k on
+    the previous machine.)
 
     ``light=True`` skips the velocity payload entirely (3 fewer sort
     operands + 3 fewer dense scatters; the rebinned state carries zero
@@ -742,7 +661,7 @@ def slab_fold(
     and returns the updated carry. Returns accumulators reassembled to the
     flat [S, ...] layout.
 
-    TPU design notes: each block reads ONE contiguous haloed window per
+    Design notes: each block reads ONE contiguous haloed window per
     field (``lax.dynamic_slice`` — no gathers; the halo is the leading-axes
     stride so every slab of the block lies inside the window). Blocking
     bounds the pair temporaries to [blk, cap, 3cap] regardless of grid
@@ -753,8 +672,8 @@ def slab_fold(
 
     Multi-chip: with ``halo=(lo_fields, hi_fields)`` and ``local_cells``,
     the fold operates on a device-local contiguous slab of cells whose
-    out-of-shard neighbor rows were exchanged explicitly (ppermute over
-    ICI — parallel/halo.py) instead of zero-padded; each halo dict holds
+    out-of-shard neighbor rows were exchanged explicitly (ppermute —
+    parallel/halo.py) instead of zero-padded; each halo dict holds
     [padc*cap, ...] rows (padc = halo_cells(grid)).
     """
     cap = grid.cap
@@ -868,11 +787,9 @@ def slab_fold(
                 mode = grid.window_mode
                 if mode == "mega":
                     # One [blk, 3^dim * cap] window: every cell-column of
-                    # every slab concatenated along lanes. 27*cap = 864
-                    # lanes pad to 896 (3.7% waste) where the per-slab
-                    # [blk, r, 3*cap=96] temps pad to 128 (33% waste on
-                    # every pair op), and pair_fn dispatches once per
-                    # block instead of 3^(dim-1) times.
+                    # every slab concatenated on the last axis, so pair_fn
+                    # dispatches once per block instead of 3^(dim-1)
+                    # times.
                     views = []
                     for sh in shifts:
                         base0 = (padc + sh - 1) * cap
@@ -1057,9 +974,9 @@ def slab_fold_sym(
 
     padded = {k: pad_rows(v) for k, v in fields.items()}
 
-    # static upper-triangle mask for the self slab: lanes [0, cap) are the
-    # home cell itself (pair once: rank_j > rank_i), lanes [cap, 2cap) the
-    # +1 neighbor (all pairs)
+    # static upper-triangle mask for the self slab: columns [0, cap) are the
+    # home cell itself (pair once: rank_j > rank_i), columns [cap, 2cap)
+    # the +1 neighbor (all pairs)
     tri = jnp.concatenate(
         [
             jnp.triu(jnp.ones((cap, cap), bool), k=1),

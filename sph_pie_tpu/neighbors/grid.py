@@ -1,6 +1,6 @@
 """Uniform-grid cell-list neighbor search, fully static-shape.
 
-TPU-first design (BASELINE.json "counting-sort cell lists with fixed-capacity
+Static-shape design (BASELINE.json "counting-sort cell lists with fixed-capacity
 neighbor gathers"):
 
   1. Hash every particle to a grid cell (cell edge == support radius h).
@@ -10,7 +10,7 @@ neighbor gathers"):
   4. Neighbor candidates for particle i = for each of the 3^d adjacent cells,
      the first ``cap`` particles of that cell's sorted range. The scan over
      the 3^d offsets keeps the materialised intermediate at [N, cap, ...]
-     instead of [N, 3^d * cap, ...], bounding HBM pressure at large N.
+     instead of [N, 3^d * cap, ...], bounding memory pressure at large N.
 
 Inactive particles sort to a sentinel cell id past every real cell, so they
 never appear in any candidate range.

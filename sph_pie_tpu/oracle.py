@@ -7,7 +7,7 @@ the framework's test rig (the reference's own testing style: a seeded
 scratch-engine harness, `scripts/simulate-archive.js` — SURVEY.md §4).
 
 This is a dense O(N^2) vectorised NumPy implementation that mirrors the
-TPU engine's math **term for term and in the same order** (same kernels and
+JAX engine's math **term for term and in the same order** (same kernels and
 constants, same EOS clamp, same masks, same integration order), documented
 so the comparison is meaningful (SURVEY.md §7.4 item 4). Run in float64 it
 serves as the precision reference; the engine's own f32/f64 parity is

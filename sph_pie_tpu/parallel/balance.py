@@ -12,12 +12,13 @@ the split points are chosen from the actual per-cell particle counts:
     on one device and local arrays would have to be nearly global-sized;
     with c_cap = 2*C/n the empty cells spread over several devices and a
     settled dam break balances to ~1.0x — see tests/test_balance.py);
-  * every device stores a fixed [c_cap*cap] padded slot slab (static
-    shapes; padding rows have mass 0 so the fold's empty-block skip makes
-    them nearly free);
-  * halos ride explicit jax.lax.ppermute: the hi halo is a neighbor's
-    first rows (static offset), the lo halo is the LAST VALID rows of the
-    left neighbor — a dynamic_slice at its own count (shard_map gives each
+  * every device stores a fixed [(c_cap + halo_cells)*cap] padded slot
+    slab (static shapes; padding rows have mass 0 so the fold's
+    empty-block skip makes them nearly free);
+  * halos ride explicit jax.lax.ppermute: the hi halo is the right
+    neighbor's first rows, written right after this device's last valid
+    row; the lo halo is the LAST VALID rows of the left neighbor — both
+    at dynamic offsets from the device's own count (shard_map gives each
     device its scalar metadata);
   * ``rebalance_splits`` re-derives split points from current counts — the
     "resort" — whenever max/mean device load drifts past a threshold
@@ -34,10 +35,7 @@ import numpy as np
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from sph_pie_tpu.kernels import eos
 from sph_pie_tpu.neighbors import binned as nb
@@ -188,7 +186,7 @@ def collect(grid: nb.BinnedGrid, stacked: jax.Array, starts) -> jax.Array:
 class BalancedState:
     """Per-device padded slabs + split metadata for one decomposition."""
 
-    fields: dict  # name -> [n_dev, c_cap*cap, ...]
+    fields: dict  # name -> [n_dev, slab_cells*cap, ...]
     starts: np.ndarray
     travel: jax.Array
     sim_time: jax.Array = 0.0  # drives moving obstacles
@@ -206,6 +204,10 @@ def make_balanced_step(mesh: Mesh, params, grid: nb.BinnedGrid, c_cap: int, obst
     n = mesh.devices.size
     cap = grid.cap
     halo_rows = nb.halo_cells(grid) * cap
+    # Local slabs hold up to c_cap owned cells plus room for the right
+    # neighbor's first halo cells, which are placed right after the owned
+    # ones (see ``place_hi``).
+    slab_cells = c_cap + nb.halo_cells(grid)
     grid_local = dataclasses.replace(
         grid, symmetric_fold=False  # window write-back can't cross shards
     )
@@ -231,8 +233,17 @@ def make_balanced_step(mesh: Mesh, params, grid: nb.BinnedGrid, c_cap: int, obst
         wall_axes = None
 
     def init_fn(b: nb.BinnedState, starts) -> BalancedState:
+        # A halo comes from ONE neighbor, so every segment before the
+        # last non-empty one must be at least a halo wide.
+        widths = np.diff(np.asarray(starts))
+        last = int(np.nonzero(widths)[0].max(initial=0))
+        if (widths[:last] < nb.halo_cells(grid)).any():
+            raise ValueError(
+                f"segment widths {widths.tolist()} thinner than the "
+                f"{nb.halo_cells(grid)}-cell halo; use fewer devices"
+            )
         fields = {
-            k: distribute(grid, getattr(b, k), starts, c_cap)
+            k: distribute(grid, getattr(b, k), starts, slab_cells)
             for k in FIELD_NAMES
         }
         return BalancedState(
@@ -245,41 +256,62 @@ def make_balanced_step(mesh: Mesh, params, grid: nb.BinnedGrid, c_cap: int, obst
     def local(pos, vel, mass, valid, n_rows, travel, sim_time):
         pos, vel, mass, valid = pos[0], vel[0], mass[0], valid[0]
         n_rows = n_rows[0]
-        v = wcsph_binned_local_view(pos, vel, mass)
+        fwd = [(i, i + 1) for i in range(n - 1)]
+        bwd = [(i + 1, i) for i in range(n - 1)]
 
-        def exchange(fields: dict):
-            lo, hi = {}, {}
-            fwd = [(i, i + 1) for i in range(n - 1)]
-            bwd = [(i + 1, i) for i in range(n - 1)]
+        def place_hi(arrays: dict) -> dict:
+            """Write the right neighbor's first halo rows right after my
+            LAST VALID row: my last cells' neighbor windows reach there.
+            (The fold's own hi halo sits past the whole slab, which only
+            an exactly full slab would reach.)"""
+            out = {}
+            for k, x in arrays.items():
+                hi = lax.ppermute(x[:halo_rows], axis, bwd)
+                out[k] = lax.dynamic_update_slice_in_dim(x, hi, n_rows, axis=0)
+            return out
+
+        def lo_halo(fields: dict):
+            """(lo, zero hi) halos for the fold: lo for my right neighbor
+            is my LAST VALID rows."""
+            lo = {}
             for k, x in fields.items():
-                # lo halo for my right neighbor = my LAST VALID rows
                 edge_hi = lax.dynamic_slice_in_dim(
                     x, jnp.maximum(n_rows - halo_rows, 0), halo_rows, axis=0
                 )
                 lo[k] = lax.ppermute(edge_hi, axis, fwd)
-                hi[k] = lax.ppermute(x[:halo_rows], axis, bwd)
-            return lo, hi
+            return lo, jax.tree.map(jnp.zeros_like, lo)
 
-        dens_fields = {**wcsph_binned._planar("p", pos), "mass": mass}
-        halo = exchange(dens_fields)
+        a = place_hi({"pos": pos, "mass": mass})
+        dens_fields = {**wcsph_binned._planar("p", a["pos"]), "mass": a["mass"]}
         rho = wcsph_binned._density(
-            params, grid_local, v, halo=halo, local_cells=c_cap
+            params,
+            grid_local,
+            wcsph_binned_local_view(a["pos"], vel, a["mass"]),
+            halo=lo_halo(dens_fields),
+            local_cells=slab_cells,
         )
         prs = eos.tait_pressure(params, rho)
-        v = wcsph_binned_local_view(pos, vel, mass, rho, prs)
 
-        inv_rho = 1.0 / rho
+        a = place_hi(
+            {"pos": pos, "vel": vel, "mass": mass, "rho": rho, "prs": prs}
+        )
+        inv_rho = 1.0 / a["rho"]
         force_fields = {
-            **wcsph_binned._planar("p", pos),
-            **wcsph_binned._planar("v", vel),
-            "mass": mass,
-            "pr2": prs * inv_rho * inv_rho,
-            "m_rho": mass * inv_rho,
+            **wcsph_binned._planar("p", a["pos"]),
+            **wcsph_binned._planar("v", a["vel"]),
+            "mass": a["mass"],
+            "pr2": a["prs"] * inv_rho * inv_rho,
+            "m_rho": a["mass"] * inv_rho,
             "inv_rho": inv_rho,
         }
-        halo = exchange(force_fields)
         acc, xsph = wcsph_binned._forces(
-            params, grid_local, v, halo=halo, local_cells=c_cap
+            params,
+            grid_local,
+            wcsph_binned_local_view(
+                a["pos"], a["vel"], a["mass"], a["rho"], a["prs"]
+            ),
+            halo=lo_halo(force_fields),
+            local_cells=slab_cells,
         )
 
         acc = acc + params.gravity + boundary_accel(params, pos, vel, wall_axes)
@@ -289,7 +321,7 @@ def make_balanced_step(mesh: Mesh, params, grid: nb.BinnedGrid, c_cap: int, obst
         vmask = valid[:, None]
         new_vel = jnp.where(vmask, vel + params.dt * acc, 0.0)
         new_vel = clamp_speed(params, new_vel)
-        vel_adv = new_vel + params.xsph_eps * xsph
+        vel_adv = jnp.where(vmask, new_vel + params.xsph_eps * xsph, 0.0)
         new_pos = jnp.where(vmask, pos + params.dt * vel_adv, pos)
 
         disp2 = jnp.max(jnp.sum(vel_adv * vel_adv, axis=-1))
@@ -320,7 +352,7 @@ def make_balanced_step(mesh: Mesh, params, grid: nb.BinnedGrid, c_cap: int, obst
             in_fields = dict(
                 in_fields,
                 **{
-                    k: distribute(grid, v, bs.starts, c_cap)
+                    k: distribute(grid, v, bs.starts, slab_cells)
                     for k, v in glob.items()
                 },
             )
@@ -355,27 +387,3 @@ def wcsph_binned_local_view(pos, vel, mass, density=None, pressure=None):
     from sph_pie_tpu.parallel.halo import _LocalView
 
     return _LocalView(pos=pos, vel=vel, mass=mass, density=density, pressure=pressure)
-
-
-def hbm_budget_bytes(n_particles: int, dim: int = 3, cap: int = 40,
-                     occupancy: float = 15.4, occupied_frac: float = 0.21,
-                     c_cap_slack: float = 2.0, n_dev: int = 8) -> dict:
-    """Feasibility math for BASELINE config #5 (16M particles, 8 chips).
-
-    Slots scale as particles / (occupancy * occupied_frac) * cap; per-slot
-    bytes cover pos/vel/bin_pos (3*dim f32), mass/density/pressure (3 f32),
-    valid (1 B), owner (4 B). Local padded slabs carry ``c_cap_slack``x the
-    equal share. Returns per-device bytes alongside the v5e HBM size.
-    """
-    cells = n_particles / (occupancy * occupied_frac)
-    slots = cells * cap
-    bytes_per_slot = (3 * dim + 3) * 4 + 1 + 4
-    global_bytes = slots * bytes_per_slot
-    per_dev = global_bytes / n_dev * c_cap_slack
-    return {
-        "slots": int(slots),
-        "global_gb": global_bytes / 1e9,
-        "per_device_gb": per_dev / 1e9,
-        "v5e_hbm_gb": 16.0,
-        "fits": per_dev < 16.0e9 * 0.6,  # leave 40% for temps/halos/compiler
-    }

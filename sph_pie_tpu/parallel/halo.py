@@ -1,8 +1,8 @@
-"""Explicit shard_map + ppermute halo exchange (ICI-native hot path).
+"""Explicit shard_map + ppermute halo exchange.
 
 The GSPMD path (parallel/sharding.py) lets XLA infer the collectives; this
 module spells them out, which is the BASELINE-named mechanism ("spatially
-shards the domain with halo exchange via jax.lax.ppermute over ICI") and
+shards the domain with halo exchange via jax.lax.ppermute") and
 gives the compiler no freedom to choose worse ones:
 
   * slot arrays are split into contiguous slabs of cells per device
@@ -15,7 +15,8 @@ gives the compiler no freedom to choose worse ones:
 
 The amortised rebin stays outside shard_map (it is a global counting sort
 — run under the partitioner as in sharding.py); between rebins no particle
-changes cells, so the decomposition is static and only halos move over ICI.
+changes cells, so the decomposition is static and only halos move between
+devices (collectives that XLA hands to NCCL on GPUs).
 """
 
 from __future__ import annotations
@@ -28,10 +29,7 @@ import jax.numpy as jnp
 from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map  # jax >= 0.8
-except ImportError:  # pragma: no cover - older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from sph_pie_tpu.kernels import eos
 from sph_pie_tpu.neighbors import binned as nb

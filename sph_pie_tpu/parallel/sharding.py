@@ -3,16 +3,16 @@
 The reference has no distributed layer at all (SURVEY.md §5 — its only
 "fan-out" is a browser BroadcastChannel, `public/app.js:1884-2006`); the
 BASELINE contract supplies the real requirement: spatially-sharded multi-
-chip runs with halo exchange over ICI.
+device runs with halo exchange (XLA lowers the collectives to NCCL over
+NVLink on GPUs).
 
-TPU-native design: the binned slot arrays (``neighbors/binned.py``) are
+Design: the binned slot arrays (``neighbors/binned.py``) are
 sharded along the leading cell axis of the grid — contiguous slabs of
 cells per device, i.e. a 1-D spatial domain decomposition. Because the
 whole step is expressed as static slices and dense arithmetic over that
 axis, ``jit`` + GSPMD lowers the slab-window halos into exact
-collective-permutes over ICI automatically — the idiomatic JAX way
-(annotate shardings, let XLA insert the collectives) rather than a
-hand-rolled NCCL translation. The amortised rebin (argsort) becomes a
+collective-permutes automatically — the idiomatic JAX way (annotate
+shardings, let XLA insert the collectives). The amortised rebin (argsort) becomes a
 distributed sort under the same partitioner.
 
 ``shard_map``-level manual ppermute halo exchange is a later optimisation;
@@ -74,7 +74,7 @@ def sharded_step(mesh: Mesh, params: FluidParams, grid: nb.BinnedGrid, axis: str
     # The symmetric fold's window write-back (scan-carried
     # dynamic_update_slice across shard boundaries) does not partition
     # well under GSPMD; sharded paths keep the one-sided fold.
-    grid = dataclasses.replace(grid, symmetric_fold=False, pair_kernel="fold")
+    grid = dataclasses.replace(grid, symmetric_fold=False)
     slot = slot_sharding(mesh, axis)
     rep = replicated(mesh)
 
@@ -100,7 +100,7 @@ def sharded_simulate(mesh: Mesh, params, grid, axis: str = SPATIAL_AXIS):
     """n-step roll with pinned shardings (fori_loop keeps layout stable)."""
     import dataclasses
 
-    grid = dataclasses.replace(grid, symmetric_fold=False, pair_kernel="fold")
+    grid = dataclasses.replace(grid, symmetric_fold=False)
     slot = slot_sharding(mesh, axis)
     rep = replicated(mesh)
 
@@ -128,13 +128,13 @@ def sharded_pbf_simulate(mesh: Mesh, params, grid, pbf_params, axis: str = SPATI
     slices over the sharded axis lower to collective-permutes). The
     compact owner-indexed stashes in ``pbf.step`` (K-row gathers that
     cross shard boundaries) partition as gather collectives — correct by
-    construction; their cost rides DCN/ICI once per step.
+    construction; their cost is one collective per step.
     """
     import dataclasses
 
     from sph_pie_tpu.solvers import pbf as pbf_lib
 
-    grid = dataclasses.replace(grid, symmetric_fold=False, pair_kernel="fold")
+    grid = dataclasses.replace(grid, symmetric_fold=False)
     slot = slot_sharding(mesh, axis)
     rep = replicated(mesh)
 

@@ -79,9 +79,9 @@ def render_u8(
 def splat_binned(grid, b, resolution=(256, 256), axis: int = 2) -> jax.Array:
     """Framebuffer straight from the dense binned layout — scatter-free.
 
-    A particle-indexed scatter-add at 1M+ particles costs hundreds of ms on
-    TPU (XLA scatter is ~serial per update); the binned layout already IS a
-    spatial histogram, so projection = one O(S) per-cell mass reduction +
+    A particle-indexed scatter-add at 1M+ particles was slow on the
+    previous machine (XLA scatter ran ~serially per update there); the
+    binned layout already IS a spatial histogram, so projection = one O(S) per-cell mass reduction +
     a sum over the projection grid axis + a bilinear resize. Sub-cell
     positions are quantized to the cell grid (~2.6 px at 256^2 over a unit
     domain) — the right trade for in-loop streaming at 1M+ (use ``splat``

@@ -34,7 +34,7 @@ class Scene:
     name: str
     params: FluidParams
     gspec: GridSpec        # naive per-particle cell grid (reference engine)
-    bgrid: nb.BinnedGrid   # dense slot grid (TPU production engine)
+    bgrid: nb.BinnedGrid   # dense slot grid (production engine)
     state: ParticleState
     obstacles: object | None = None   # scenes.obstacles.Obstacles
     emitter: object | None = None     # scenes.emitter.EmitterSchedule
@@ -48,7 +48,7 @@ def lattice_block(lo, hi, dx: float) -> np.ndarray:
     """Particle positions on a regular lattice filling an AABB, spacing dx.
 
     First particle sits at lo + dx/2 (cell-centered), so blocks touch
-    boundaries with a half-spacing gap — consistent on both the TPU engine
+    boundaries with a half-spacing gap — consistent on both the binned engine
     and the CPU oracle.
     """
     axes = [np.arange(l + 0.5 * dx, h, dx) for l, h in zip(lo, hi)]
@@ -121,7 +121,7 @@ def _gravity_first_order(dim: int) -> tuple[int, ...]:
 
 def _default_cap(dim: int, h: float, dx: float) -> int:
     """Per-cell gather capacity: rest occupancy (h/dx)^dim with ~2x headroom,
-    rounded up to a multiple of 8 (VPU sublane friendliness)."""
+    rounded up to a multiple of 8."""
     rest = (h / dx) ** dim
     cap = int(math.ceil(2.0 * rest))
     return max(8, (cap + 7) // 8 * 8)
@@ -352,22 +352,17 @@ def dam_break_3d(n_target: int = 100_000, dtype=jnp.float32, **overrides) -> Sce
     dx = (vol / n_target) ** (1.0 / 3.0)
     overrides.setdefault("surface_tension", 0.25)
     overrides.setdefault("xsph_eps", 0.05)
-    # skin 0.40 / cap 40: measured optimum on v5e at 1M (scripts/
-    # sweep_skin_up.py, 4 interleaved reps, overflow 0): WCSPH 142.3 ->
-    # 132.0 ms/step, PBF flagship 509.8 -> 471.7 with rebins 1.0 -> 0.5
-    # per step. The window lane dim is 3*cap padded to 128, so cap 40
-    # (120 lanes) wastes 6% of every vector op vs cap 32's 25%, while
-    # cells — and the ~47% window-plumbing share of the step (PERF.md) —
-    # shrink by cell volume. Occupancy is resolution-invariant for this
-    # geometry ((cell/dx)^3 fixed by h_over_dx and skin): full-run p100
-    # was 27 at skin 0.25 -> x(1.40/1.25)^3 ~ 38 < 40; overflow is
-    # counted at runtime (BinnedState.overflow) and reported by bench.
-    # Downward sweep (sweep_skin.py) and 0.35 both lose; see ROADMAP.
+    # skin 0.40 / cap 40: the optimum of a 1M skin sweep on the previous
+    # machine, chosen there to fill its 128-wide vector tiles (3*cap = 120)
+    # and to halve PBF rebins (1.0 -> 0.5 per step); the GPU sweep is
+    # ROADMAP S7. Occupancy is resolution-invariant for this geometry
+    # ((cell/dx)^3 fixed by h_over_dx and skin): full-run p100 was 27 at
+    # skin 0.25 -> x(1.40/1.25)^3 ~ 38 < 40; overflow is counted at
+    # runtime (BinnedState.overflow) and reported by bench.
     if "skin_frac" not in overrides:
         overrides["skin_frac"] = 0.40
         # cap tied to the defaulted skin only: explicit skin sweeps own
-        # their cap (auto headroom at 0.40 would pick 48 -> 144 lanes,
-        # spilling into a second 128-lane tile and losing the whole win).
+        # their cap (auto headroom at 0.40 would pick 48).
         overrides.setdefault("bcap", 40)
     return block_scene(
         name="dam_break_3d",

@@ -1,6 +1,6 @@
 """Emitters: pre-scheduled particle spawning with static shapes.
 
-TPU-native emission: the scene is allocated at its final particle count and
+Static-shape emission: the scene is allocated at its final particle count and
 every future particle has a precomputed (spawn_step, pos, vel, mass). Until
 its step arrives a particle is simply inactive (never binned, zero cost).
 Activation happens at epoch boundaries of the run loop

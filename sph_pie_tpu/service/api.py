@@ -818,6 +818,9 @@ def make_server(app: App, host: str | None = None, port: int | None = None):
 def serve(config_path="config/app-config.json"):
     import os
 
+    from sph_pie_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     # Access log defaults ON when serving (morgan analogue); set
     # SPH_PIE_ACCESS_LOG=0 to silence.
     on = os.environ.get("SPH_PIE_ACCESS_LOG", "1").lower() not in ("0", "false")

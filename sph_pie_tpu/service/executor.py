@@ -1,7 +1,7 @@
 """Run executor: the bridge from run records to actual simulations.
 
 The reference's runs (shows) are logged by human operators; this framework
-executes them: submitting a run drives the TPU engine for the requested
+executes them: submitting a run drives the SPH engine for the requested
 steps, records step metrics into the run record at a fixed cadence (the
 entries analogue), optionally checkpoints, and fires lifecycle webhooks.
 A single worker thread serialises execution (one accelerator).

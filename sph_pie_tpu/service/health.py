@@ -2,7 +2,7 @@
 
 Counterpart of `GET /api/health` in sphereisaiahmin-dev/sph-pie
 (`server/index.js:132-144`: status + storage metadata + webhook state +
-bound address), extended with the thing a TPU framework actually needs to
+bound address), extended with the thing an accelerator framework actually needs to
 report: the device topology.
 """
 

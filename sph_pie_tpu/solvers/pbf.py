@@ -51,8 +51,7 @@ class PbfParams:
     epilogue: str               # how step-start positions + previous-step
                                 # density reach the final fold (static;
                                 # identical physics, different data
-                                # movement — A/B on hardware via
-                                # scripts/micro_pbf_epilogue.py):
+                                # movement):
                                 # "gather" = compact owner-indexed stashes
                                 #   + light mid-step rebins; recovery is
                                 #   4 [S]<-[K] owner gathers (S ~ 8.4x K
@@ -88,13 +87,11 @@ class PbfParams:
                                 # bookkeeping). Correctness never depends
                                 # on it (maybe_rebin fires lazily on TRUE
                                 # drift either way); it controls the
-                                # rebin FIRE RATE. Measured v5e 1M dam
-                                # break at skin 0.25h, where proj_cap_h =
-                                # 0.25 * old skin-frac (micro_pbf.py):
-                                # 0.125 -> 816 ms/step, 4.0 rebins/step,
+                                # rebin FIRE RATE. 1M dam break at skin
+                                # 0.25h: 0.125 -> 4.0 rebins/step,
                                 #          rho_p99 1.127 rho0
-                                # 0.0625 -> 601 ms, 1.6/step, p99 1.080
-                                # 1/24 -> 546 ms, 1.0/step, p99 1.067
+                                # 0.0625 -> 1.6/step, p99 1.080
+                                # 1/24 -> 1.0/step, p99 1.067
                                 # Tighter caps IMPROVE density error
                                 # (huge Jacobi projections overshoot)
                                 # but SLOW violent transients. Sweep of
@@ -148,29 +145,24 @@ def make_pbf_params(
 
 def flagship_params(**overrides) -> PbfParams:
     """The benchmark/flagship PBF configuration (BASELINE config #4) —
-    ONE definition shared by bench.py, the hardware micros, and the
-    quality tests that gate it (tests/test_pbf.py).
+    ONE definition shared by bench.py, chip_smoke.py, and the quality
+    tests that gate it (tests/test_pbf.py).
 
-    Calibration (scripts/sweep_pbf_iters.py + micro_pbf_ab.py, v5e 1M):
-    two Jacobi iterations at sor 0.9 pass every calibrated physics bar
-    (2D collapse spread > 1.5h, vmax < 10, rho_q90 < 1.15 — in fact the
-    round-3 incumbent iters=3/sor=0.8 FAILED the vmax bar at 11.9 while
-    this config reads 8.2) and run 579.9 vs 727.3 ms/step in-process
-    (1.25x): one fewer lambda+dx fold pair and ~0.4 fewer rebins/step.
-    Cap sweep at iters=2 (micro_pbf_cap2.py, same process; values below
-    in proj_cap_h = h units, measured at skin 0.25h where 0.0625h was
-    skin-frac 0.25): 0.0625 beats 0.075 on BOTH time (549.1 vs 569.2 ms,
-    1.0 vs 1.4 rebins/step) and quality (1M rho_max 1.19 vs 1.31; 2D
-    bars all green, rho_q90 1.025 vs 1.046); 0.05 fails the 2D vmax bar.
-    NOTE: at iters=3 cap 0.0625 had FAILED the spread bar — cap quality
-    is coupled to (iters, sor), so re-run scripts/sweep_pbf_iters.py
-    when touching any of the three.
+    Calibration: two Jacobi iterations at sor 0.9 pass every calibrated
+    physics bar (2D collapse spread > 1.5h, vmax < 10, rho_q90 < 1.15 —
+    in fact the earlier iters=3/sor=0.8 FAILED the vmax bar at 11.9 while
+    this config reads 8.2), with one fewer lambda+dx fold pair and ~0.4
+    fewer rebins/step. Cap sweep at iters=2 (proj_cap_h in h units, at
+    skin 0.25h): 0.0625 beats 0.075 on rebins (1.0 vs 1.4 per step) and
+    quality (1M rho_max 1.19 vs 1.31; 2D bars all green, rho_q90 1.025 vs
+    1.046); 0.05 fails the 2D vmax bar. NOTE: at iters=3 cap 0.0625 had
+    FAILED the spread bar — cap quality is coupled to (iters, sor), so
+    re-run the sweep when touching any of the three.
 
-    epilogue="ride": hardware A/B at 1M (scripts/micro_pbf_epilogue.py,
-    v5e, 4 interleaved reps, std <1 ms): ride 437.1 vs gather 551.4
-    ms/step — 1.26x. The 4 [S]<-[K] owner gathers (S ~ 8.4x K) cost more
-    than the extra rebin sort operands at every measured rebin rate
-    (1.0/step here). Physics-equal to 1e-6 incl. periodic seams
+    epilogue="ride" was chosen on the previous machine, where the 4
+    [S]<-[K] owner gathers (S ~ 8.4x K) cost more than the extra rebin
+    sort operands; the GPU A/B is not measured yet. Physics-equal to 1e-6
+    incl. periodic seams
     (tests/test_pbf.py::test_pbf_epilogue_ride_matches_gather)."""
     cfg = dict(iters=2, sor=0.9, proj_cap_h=0.0625, epilogue="ride")
     cfg.update(overrides)
@@ -567,9 +559,7 @@ def step(
     new_vel = clamp_speed(params, new_vel)
 
     # Final fold (diagnostics/rendering density + XSPH weights). The
-    # round-2 version ran the full lambda fold here (4 unread gradient
-    # planes, 75 ms); round 3 first cut it to density-only (~41 ms),
-    # then fused the XSPH pass in (_density_xsph_fold) so the common
+    # XSPH pass is fused in (_density_xsph_fold) so the common
     # xsph-no-vorticity config pays ONE fold for both.
     if params.use_xsph and not pbf.use_vorticity:
         rho, dv = _density_xsph_fold(
@@ -624,4 +614,33 @@ def simulate(params, grid, pbf, b, n_steps, obstacles=None) -> nb.BinnedState:
         jnp.asarray(n_steps, jnp.int32),
         lambda _, s: step(params, grid, pbf, s, obstacles),
         b,
+    )
+
+
+@partial(jax.jit, static_argnames=("grid",))
+def simulate_rendered(params, grid, pbf, b, n_steps):
+    """``simulate`` with the on-device splat render inside the loop, every
+    step (BASELINE config #4: "PBF/PCISPH 1M w/ on-device splat render"):
+    a 256x256 uint8 frame viewed along y.
+
+    Returns (state, last frame [uint8], checksum over every frame's
+    pixels); the checksum consumes each step's frame so the render cannot
+    be compiled away."""
+    from sph_pie_tpu.render import splat as splat_lib
+
+    def render(bb):
+        return splat_lib.render_binned_u8(grid, bb, (256, 256), axis=1, gain=50.0)
+
+    def body(_, carry):
+        bb, _, checksum = carry
+        bb = step(params, grid, pbf, bb)
+        frame = render(bb)
+        return bb, frame, checksum + jnp.sum(frame.astype(jnp.uint32))
+
+    frame0 = jnp.zeros(jax.eval_shape(render, b).shape, jnp.uint8)
+    return lax.fori_loop(
+        0,
+        jnp.asarray(n_steps, jnp.int32),
+        body,
+        (b, frame0, jnp.zeros((), jnp.uint32)),
     )

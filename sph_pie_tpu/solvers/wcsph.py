@@ -86,8 +86,7 @@ def _pair_accel(params: FluidParams, state: ParticleState):
 
         # XSPH sum (uses pre-step velocities; applied to advection below).
         # Monaghan-style with the common m_j/rho_j weighting — divide-free
-        # in the pair loop (the rho_bar form costs a per-pair divide, the
-        # single most expensive op in the TPU hot path).
+        # in the pair loop (the rho_bar form costs a per-pair divide).
         w = smoothing.poly6(dim, h, r2)
         xw = jnp.where(live, mass[j] * inv_rho_j * w, 0.0)
         xsph = xsph + jnp.sum(xw[..., None] * dv, axis=1)

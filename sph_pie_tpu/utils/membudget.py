@@ -1,6 +1,6 @@
-"""HBM memory budget accounting for binned scenes (BASELINE config #5).
+"""Device-memory budget accounting for binned scenes (BASELINE config #5).
 
-Answers "does N particles fit on D chips" ANALYTICALLY from the static
+Answers "does N particles fit on D devices" ANALYTICALLY from the static
 grid geometry — the quantities XLA allocates are all shape-determined:
 
   * the dense slot arrays (the dominant term: S = num_cells * cap slots),
@@ -10,9 +10,13 @@ grid geometry — the quantities XLA allocates are all shape-determined:
     the invariant that makes big grids possible at all),
   * double-buffering headroom for the functional update of the state.
 
+The capacity side comes from the device itself
+(``memory_stats()["bytes_limit"]``); a caller with no device to ask (a CPU
+dry run) passes the capacity it assumes explicitly.
+
 Reference scale note: the reference platform has no large-array compute;
-this sizing discipline is the TPU-native analogue of its capacity
-planning (5-runs-per-date cap, retention windows) applied to HBM.
+this sizing discipline is the analogue of its capacity planning
+(5-runs-per-date cap, retention windows) applied to device memory.
 """
 
 from __future__ import annotations
@@ -54,14 +58,38 @@ class MemBudget:
         }
 
 
+def device_capacity_bytes(device=None) -> int:
+    """Bytes a process may allocate on ``device`` (default: the first JAX
+    device), as the runtime reports it in ``memory_stats()["bytes_limit"]``.
+
+    Raises ValueError when the device reports no capacity (the CPU
+    backend reports none): the caller then has to state the capacity it
+    assumes."""
+    if device is None:
+        import jax
+
+        device = jax.devices()[0]
+    stats = device.memory_stats() or {}
+    if "bytes_limit" not in stats:
+        raise ValueError(
+            f"{device.platform} device reports no memory capacity; "
+            "pass hbm_bytes explicitly"
+        )
+    return int(stats["bytes_limit"])
+
+
 def budget(
     grid: BinnedGrid,
     n_particles: int,
     n_devices: int = 1,
-    hbm_bytes: int = 16 << 30,  # v5e: 16 GB per chip
+    hbm_bytes: int | None = None,
     dtype_bytes: int = 4,
 ) -> MemBudget:
-    """Per-device HBM budget for a binned scene sharded over the cell axis."""
+    """Per-device memory budget for a binned scene sharded over the cell
+    axis. ``hbm_bytes`` is the per-device capacity; None reads it from the
+    device (``device_capacity_bytes``)."""
+    if hbm_bytes is None:
+        hbm_bytes = device_capacity_bytes()
     dim = grid.dim
     S = grid.num_slots
     K = grid.max_particles or n_particles
@@ -96,7 +124,9 @@ def budget(
     )
 
 
-def dam_break_budget(n_target: int, n_devices: int = 1) -> MemBudget:
+def dam_break_budget(
+    n_target: int, n_devices: int = 1, hbm_bytes: int | None = None
+) -> MemBudget:
     """Budget for the standard 3D dam-break scene at n_target particles.
 
     Builds only the STATIC grid (pure shape math — no arrays), so this is
@@ -104,4 +134,4 @@ def dam_break_budget(n_target: int, n_devices: int = 1) -> MemBudget:
     from sph_pie_tpu.scenes import dam_break_3d
 
     scene = dam_break_3d(n_target=n_target, build_state=False)
-    return budget(scene.bgrid, n_target, n_devices)
+    return budget(scene.bgrid, n_target, n_devices, hbm_bytes)

@@ -175,7 +175,7 @@ def test_adaptive_rows_fold_matches_static():
         valid = np.asarray(b.valid)
         rho_a = np.asarray(wcsph_binned._density(scene.params, g_ad, b))
         rho_s = np.asarray(wcsph_binned._density(scene.params, g_st, b))
-        # segments partition home rows; only XLA's lane-reduce tiling
+        # segments partition home rows; only XLA's reduction tiling
         # differs between the [blk,seg,*] and [blk,cap,*] shapes
         np.testing.assert_allclose(rho_a[valid], rho_s[valid], rtol=1e-6)
 
@@ -200,8 +200,7 @@ def test_adaptive_rows_fold_matches_static():
 @pytest.mark.heavy
 def test_window_modes_match_concat():
     """window_mode split/mega == concat (same pairs, different window
-    shapes handed to pair_fn; PERF.md lever 1). Pallas kernels are forced
-    off so all three run the XLA slab fold."""
+    shapes handed to pair_fn)."""
     import dataclasses
 
     from sph_pie_tpu.kernels import eos
@@ -212,7 +211,7 @@ def test_window_modes_match_concat():
     for scene in (dam_break_2d(n_target=900), dam_break_3d(n_target=2000)):
         grids = {
             m: dataclasses.replace(
-                scene.bgrid, window_mode=m, pair_kernel="fold"
+                scene.bgrid, window_mode=m
             )
             for m in ("concat", "split", "mega")
         }
@@ -248,8 +247,7 @@ def test_skin_invariance_density_forces():
     """Cell size (h + skin) must not change the physics: the fold visits
     every pair within h regardless of how particles land in cells, so
     density/forces on the SAME configuration under skin 0.25 (cap 32) and
-    skin 0.40 (bcap 40 — the upward-sweep geometry, scripts/
-    sweep_skin_up.py) may differ only by summation order (fp reassoc)."""
+    skin 0.40 (bcap 40 — the default 3D geometry) may differ only by summation order (fp reassoc)."""
     from sph_pie_tpu.kernels import eos
     from sph_pie_tpu.scenes import dam_break_3d
     from sph_pie_tpu.utils.struct import replace as srep
@@ -307,9 +305,9 @@ def test_scan_unroll_matches_default():
 
     scene = dam_break_3d(n_target=3000)
     b = scene.binned_state()
-    g1 = dataclasses.replace(scene.bgrid, pair_kernel="fold")
+    g1 = scene.bgrid
     rho1 = np.asarray(wcsph_binned._density(scene.params, g1, b))
     for k in (2, 4):
-        gk = dataclasses.replace(scene.bgrid, pair_kernel="fold", scan_unroll=k)
+        gk = dataclasses.replace(scene.bgrid, scan_unroll=k)
         rhok = np.asarray(wcsph_binned._density(scene.params, gk, b))
         np.testing.assert_array_equal(rhok, rho1)

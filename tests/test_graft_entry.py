@@ -1,9 +1,9 @@
-"""Driver-entry contract: dryrun_multichip must succeed in hostile envs.
+"""Entry-point contract: dryrun_multichip must succeed in hostile envs.
 
-Round-1 failure mode (MULTICHIP_r01.json): the driver process initialized
-the pinned single-chip backend before the CPU/8-device override could take
-effect, so make_mesh(8) raised. The entry now detects an initialized
-backend and re-execs in a clean subprocess.
+Failure mode it guards: a caller process that already initialized a
+single-device backend before the CPU/8-device override could take effect,
+so make_mesh(8) raised. The entry detects an initialized backend and
+re-execs in a clean CPU-only subprocess.
 """
 
 import pytest
@@ -39,7 +39,6 @@ def test_dryrun_multichip_poisoned_one_device_process():
     # detect this and recover via a clean subprocess.
     code = (
         "import jax\n"
-        "jax.config.update('jax_platforms', 'cpu')\n"
         "assert len(jax.devices()) >= 1\n"
         "from __graft_entry__ import dryrun_multichip\n"
         "dryrun_multichip(8)\n"
@@ -52,6 +51,7 @@ def test_dryrun_multichip_poisoned_one_device_process():
         for f in env.get("XLA_FLAGS", "").split()
         if "xla_force_host_platform_device_count" not in f
     )
+    env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.getcwd() + os.pathsep + env.get("PYTHONPATH", "")
     res = subprocess.run(
         [sys.executable, "-c", code],

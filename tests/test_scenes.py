@@ -305,10 +305,7 @@ def test_dam_break_3d_initial_cap_headroom():
     cap lowered, skin raised without a cap bump — fails here instead of
     only showing in bench JSON. Occupancy is resolution-invariant for
     this geometry ((cell/dx)^3 fixed by h_over_dx and skin). The dynamic
-    60-step overflow check is the heavy-tier twin below.
-
-    n_target matches test_pallas_density's 3D case so the expensive
-    binned_state() compile is shared within the pytest process."""
+    60-step overflow check is the heavy-tier twin below."""
     import numpy as np
 
     from sph_pie_tpu.scenes import dam_break_3d

@@ -1,6 +1,6 @@
 """WCSPH engine vs the CPU oracle (SURVEY.md §7.3 oracle-integration archetype).
 
-The float64 test checks the TPU engine's math is *identical* to the
+The float64 test checks the JAX engine's math is *identical* to the
 documented oracle (only summation-order noise); the float32 test checks the
 production dtype tracks the f64 oracle within the BASELINE-style tolerance
 on a shorter horizon. The full 4k/1k-step contract run lives in
